@@ -1,5 +1,5 @@
-# GuideMaker-TPU container (CPU backend; for TPU use a TPU-VM base image
-# with libtpu and drop the jax[cpu] pin).
+# GuideMaker-TPU container (CPU backend; for a GPU use a CUDA base image
+# and install jax[cuda12] in place of jax).
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -8,7 +8,7 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
 WORKDIR /opt/guidemaker-tpu
 COPY pyproject.toml README.md ./
 COPY guidemaker_tpu ./guidemaker_tpu
-RUN pip install --no-cache-dir jax numpy pandas pyyaml pytest \
+RUN pip install --no-cache-dir jax numpy pandas pyarrow pyyaml pytest \
     && pip install --no-cache-dir -e . \
     && make -C guidemaker_tpu/native
 

@@ -222,7 +222,7 @@ def main(st=None):
             st.markdown(fh.read(), unsafe_allow_html=True)
     st.markdown(
         "##### License ©️\n\n*GuideMaker-TPU reimplements the "
-        "USDA-ARS GuideMaker workflow (CC0 1.0) as a TPU-native framework.*")
+        "USDA-ARS GuideMaker workflow (CC0 1.0) as a JAX framework.*")
 
     if st.button("Clean up session files"):
         shutil.rmtree(workdir, ignore_errors=True)

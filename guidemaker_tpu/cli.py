@@ -17,7 +17,7 @@ from .pipeline import PipelineConfig, run_pipeline
 def myparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="guidemaker-tpu",
-        description=("GuideMaker-TPU: TPU-native software to design gRNA pools "
+        description=("GuideMaker-TPU: software to design gRNA pools "
                      "in non-model genomes and CRISPR-Cas systems"),
         epilog=textwrap.dedent("""\
             To run the web app locally, in terminal run:
@@ -87,7 +87,7 @@ def myparser() -> argparse.ArgumentParser:
                         help="Path to YAML formatted configuration file, default is "
                              + str(guidemaker_tpu.CONFIG_PATH))
     parser.add_argument('--cpu', action='store_true',
-                        help='Force the JAX CPU backend (skip TPU).')
+                        help='Force the JAX CPU backend (skip the GPU).')
     parser.add_argument('--seed', type=int, default=None,
                         help='Random seed for control-guide sampling '
                              '(default: unseeded, like the reference).')
@@ -123,9 +123,6 @@ def main(arglist: list = None) -> None:
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
-    # open the device->host relay channel during startup/parsing
-    from .util import warm_d2h_channel
-    warm_d2h_channel()
 
     cfg = PipelineConfig(
         genbank=args.genbank, fasta=args.fasta, gff=args.gff,

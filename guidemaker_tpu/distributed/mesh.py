@@ -19,9 +19,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize the JAX multi-host runtime (no-op when single-process).
 
-    On TPU pods the arguments are discovered from the environment
-    automatically; on other platforms pass them explicitly.  Call once per
-    host before building meshes.
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id explicitly.  Call once per host before building
+    meshes.
     """
     global _initialized
     if _initialized:

@@ -1,7 +1,7 @@
 """DNA alphabet machinery: 2-bit codes, IUPAC masks, complements, one-hot packing.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 Sequences are held as ``uint8`` code arrays (A=0, C=1, G=2, T=3, other>=4)
 so that every downstream stage is a vectorized array op:
 
@@ -9,7 +9,8 @@ so that every downstream stage is a vectorized array op:
   over shifted views of the genome (replaces the reference's overlapped
   ``regex.finditer`` C-extension scan, ``/root/reference/guidemaker/core.py:154``).
 * Hamming k-NN encodes guides as a ``(n, 4*L)`` one-hot matrix so the
-  distance matrix is a single MXU matmul (matches = one-hot inner product).
+  distance matrix is a single matrix product (matches = one-hot inner
+  product).
 
 The IUPAC tables mirror the reference semantics
 (``/root/reference/guidemaker/core.py:108-122`` and ``core.py:1093-1124``).
@@ -246,7 +247,7 @@ def one_hot_matrix(codes: np.ndarray, dtype=np.float32) -> np.ndarray:
 
     The inner product of two rows counts matching positions, so
     ``hamming = L - onehot @ onehot.T`` — this is what puts the k-NN
-    distance computation on the TPU MXU.  Rows containing INVALID codes
+    distance computation on the tensor cores.  Rows containing INVALID codes
     get all-zero columns at those positions (they never "match").
     """
     n, length = codes.shape

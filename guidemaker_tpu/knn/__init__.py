@@ -1,17 +1,18 @@
 """Exact k-nearest-neighbor engine for guide off-target search.
 
 Replaces the reference's approximate NMSLib/HNSW index
-(``/root/reference/guidemaker/core.py:418-523``) with exact, deterministic
-nearest-neighbor search designed for TPU:
+(``core.py:418-523``) with exact, deterministic nearest-neighbor search:
 
 * **Hamming**: guides are one-hot encoded so the match count between two
-  guides is an inner product — the full distance computation is a single
-  (tiled) bfloat16 matmul on the MXU, fused with a running top-k so the
-  N x N distance matrix is never materialized.
-* **Levenshtein**: batched banded DP with a cummin-based row recurrence,
-  vectorized over guide pairs on the VPU.
-* **Sharding**: the database shards across a device mesh; per-shard top-k
-  results merge with an ``all_gather`` over ICI (see ``sharded.py``).
+  guides is an inner product — the full distance computation is a tiled
+  int8 (or bf16) matrix product, fused with the count or running top-k
+  so the N x N distance matrix is never materialized (``hamming.py``;
+  the GPU kernels in ``pallas_gpu.py``).
+* **Levenshtein**: bit-parallel and banded DP vectorized over guide
+  pairs; genome-scale retention rides the Hamming counting pass
+  (``leven.py``).
+* **Sharding**: the database shards across a device mesh; per-shard
+  results merge with a ``psum`` / ``all_gather`` (``sharded.py``).
 
 Exactness makes recall 1.0 by construction (the reference's tuned HNSW
 achieves ~0.99, ``tests/GridOptimization.ipynb``), and index-based

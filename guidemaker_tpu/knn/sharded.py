@@ -1,35 +1,20 @@
-"""Multi-device exact k-NN: database sharding + collective top-k merge.
+"""Multi-device exact k-NN: database sharding + collective merge.
 
-Scaling design (SURVEY.md §2 "parallelism strategies" mapping):
+* the guide *database* shards across the ``d`` mesh axis — each device
+  scans only ``n/d`` of it;
+* *queries* shard across the ``q`` mesh axis;
+* each device runs the single-device engine (:func:`.hamming.count_feats`
+  / :func:`.hamming.topk_feats`: the fused GPU kernels on GPUs, the plain
+  XLA version elsewhere) on its shard; counts merge with one ``psum``
+  over ``d``, top-k keys with one ``all_gather`` over ``d`` and a final
+  ``top_k``.  The global N x N distance matrix exists nowhere;
+* deterministic by construction: packed (distance, global index) keys
+  make the merge independent of the mesh shape, so one-device and
+  N-device runs agree bit for bit.
 
-* the guide *database* shards across the ``d`` mesh axis (model-parallel
-  analog) — each device scans only ``n/d`` of the database;
-* *queries* shard across the ``q`` mesh axis (data-parallel analog);
-* each device computes a local running top-k with globally-offset packed
-  keys, then an ``all_gather`` over ``d`` (ICI) merges the per-shard
-  candidates with one final ``top_k`` — the global N x N distance matrix
-  is never materialized anywhere;
-* deterministic by construction: packed (distance, global index) keys make
-  the merge independent of mesh shape, so 1-chip and N-chip runs agree
-  bit-for-bit.
-
-Two kernel tiers share this sharding layout:
-
-* the **fused tier** (``prepare_db_sharded`` + ``fused_sharded_topk`` /
-  ``fused_sharded_count``) runs the int8 one-hot Pallas streaming kernels
-  (knn/pallas_stream.py) on each device's database shard — the same
-  speed-of-light per-chip path the single-chip driver uses, wrapped in a
-  ``shard_map`` whose only collectives are the ``all_gather`` top-k merge
-  / ``psum`` count reduction.  The sharded database is device-resident
-  and cached across queries.
-* the **portable tier** (``sharded_hamming_topk`` / ``sharded_hamming_count``)
-  is plain bf16 XLA ``lax.scan`` matmuls — used as a cross-check oracle
-  and on backends without Pallas TPU lowering.
-
-The same code runs on a real TPU mesh and on the virtual CPU mesh used in
-tests (``--xla_force_host_platform_device_count``; the Pallas kernels run
-in interpret mode there).  Multi-host runs only need
-``jax.distributed.initialize()`` before calling in.
+The same code runs on a GPU host and on the virtual CPU mesh used in
+tests (``--xla_force_host_platform_device_count``).  Multi-process runs
+only need ``jax.distributed.initialize()`` before calling in.
 """
 from __future__ import annotations
 
@@ -42,7 +27,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from .hamming import INF_KEY, _pad_rows, pack_keys, unpack_keys
+from .hamming import (DB_TILE, INF_KEY, _pad_rows, bucket_rows, count_feats,
+                      fit_tile, keys_to_neighbors, onehot_on_device,
+                      pad_code_rows, topk_feats, unpack_keys)
 
 
 def make_mesh(q_shards: int, d_shards: int,
@@ -57,229 +44,10 @@ def make_mesh(q_shards: int, d_shards: int,
     return Mesh(arr, ("q", "d"))
 
 
-def _local_topk_keys(q_oh, db_shard, db_valid, offset, *, k, length, db_tile):
-    """Per-device running top-k over this device's database shard.
-
-    q_oh: (tq, 4L) bf16; db_shard: (nd_local, 4L) bf16;
-    db_valid: scalar int32 valid rows in this shard; offset: scalar int32
-    global index of this shard's first row.  Returns (tq, k) packed keys.
-    """
-    nd_local = db_shard.shape[0]
-    n_tiles = nd_local // db_tile
-    tq = q_oh.shape[0]
-    init = jnp.full((tq, k), INF_KEY, dtype=jnp.int32)
-    # mark the carry as varying over the mesh axes (shard_map VMA typing)
-    try:
-        init = jax.lax.pcast(init, ("q", "d"), to="varying")
-    except (AttributeError, TypeError):  # older jax spells it pvary
-        init = jax.lax.pvary(init, ("q", "d"))
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, db_tile), 1)
-
-    def body(best, t):
-        tile = jax.lax.dynamic_slice_in_dim(db_shard, t * db_tile, db_tile)
-        matches = jnp.dot(q_oh, tile.T, preferred_element_type=jnp.float32)
-        dist = (jnp.float32(length) - matches).astype(jnp.int32)
-        lidx = t * db_tile + lane
-        keys = jnp.where(lidx < db_valid,
-                         pack_keys(dist, lidx + offset), INF_KEY)
-        cand = jnp.concatenate([best, keys], axis=1)
-        neg_top, _ = jax.lax.top_k(-cand, k)
-        return -neg_top, None
-
-    best, _ = jax.lax.scan(body, init, jnp.arange(n_tiles, dtype=jnp.int32))
-    return best
-
-
-def sharded_topk_step(mesh: Mesh, *, k: int, length: int, db_tile: int):
-    """Build the jitted multi-device exact-kNN step for a given mesh.
-
-    Returns a function ``step(q_oh, db_oh, db_valid, shard_offsets) ->
-    packed keys (nq, k)`` where ``q_oh`` is sharded over the ``q`` axis,
-    ``db_oh`` over ``d``, and the result is replicated over ``d``.
-    """
-    # output is replicated over 'd' by the all_gather+top_k merge; disable
-    # the varying-manual-axes check (older jax: check_rep) accordingly
-    try:
-        from jax import shard_map
-        smap = functools.partial(
-            shard_map, mesh=mesh,
-            in_specs=(P("q", None), P("d", None), P("d"), P("d")),
-            out_specs=P("q", None), check_vma=False)
-    except (ImportError, TypeError):  # older jax
-        from jax.experimental.shard_map import shard_map
-        smap = functools.partial(
-            shard_map, mesh=mesh,
-            in_specs=(P("q", None), P("d", None), P("d"), P("d")),
-            out_specs=P("q", None), check_rep=False)
-
-    @smap
-    def step(q_oh, db_shard, db_valid, offsets):
-        local = _local_topk_keys(
-            q_oh, db_shard, db_valid[0], offsets[0],
-            k=k, length=length, db_tile=db_tile)
-        # merge candidates from every db shard over ICI
-        gathered = jax.lax.all_gather(local, "d", axis=1, tiled=True)
-        neg_top, _ = jax.lax.top_k(-gathered, k)
-        return -neg_top
-
-    return jax.jit(step)
-
-
-def _local_count(q_oh, db_shard, db_valid, *, editdist, length, db_tile):
-    """Per-device count of this shard's entries with dist < editdist."""
-    n_tiles = db_shard.shape[0] // db_tile
-    tq = q_oh.shape[0]
-    init = jnp.zeros((tq,), dtype=jnp.int32)
-    try:
-        init = jax.lax.pcast(init, ("q", "d"), to="varying")
-    except (AttributeError, TypeError):
-        init = jax.lax.pvary(init, ("q", "d"))
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, db_tile), 1)
-    thresh = jnp.float32(length - editdist)
-
-    def body(cnt, t):
-        tile = jax.lax.dynamic_slice_in_dim(db_shard, t * db_tile, db_tile)
-        matches = jnp.dot(q_oh, tile.T, preferred_element_type=jnp.float32)
-        lidx = t * db_tile + lane
-        hit = (matches > thresh) & (lidx < db_valid)
-        return cnt + jnp.sum(hit.astype(jnp.int32), axis=1), None
-
-    cnt, _ = jax.lax.scan(body, init, jnp.arange(n_tiles, dtype=jnp.int32))
-    return cnt
-
-
-def sharded_count_step(mesh: Mesh, *, editdist: int, length: int,
-                       db_tile: int):
-    """Jitted multi-device retention counter: partial counts per db shard,
-    summed with one ``psum`` over the ``d`` axis (counts are additive
-    across shards — no top-k merge needed)."""
-    try:
-        from jax import shard_map
-        smap = functools.partial(
-            shard_map, mesh=mesh,
-            in_specs=(P("q", None), P("d", None), P("d")),
-            out_specs=P("q"), check_vma=False)
-    except (ImportError, TypeError):
-        from jax.experimental.shard_map import shard_map
-        smap = functools.partial(
-            shard_map, mesh=mesh,
-            in_specs=(P("q", None), P("d", None), P("d")),
-            out_specs=P("q"), check_rep=False)
-
-    @smap
-    def step(q_oh, db_shard, db_valid):
-        local = _local_count(q_oh, db_shard, db_valid[0],
-                             editdist=editdist, length=length,
-                             db_tile=db_tile)
-        return jax.lax.psum(local, "d")
-
-    return jax.jit(step)
-
-
-def sharded_hamming_count(q_onehot: np.ndarray, db_onehot: np.ndarray,
-                          editdist: int, length: int, *,
-                          mesh: Optional[Mesh] = None,
-                          db_tile: int = 2048) -> np.ndarray:
-    """(nq,) int32 counts of database entries with dist < editdist,
-    database sharded over the ``d`` mesh axis, queries over ``q``."""
-    if mesh is None:
-        mesh = make_mesh(1, len(jax.devices()))
-    q_shards, d_shards = mesh.devices.shape
-
-    nq, nd = q_onehot.shape[0], db_onehot.shape[0]
-    db_tile = min(db_tile, max(128, -(-nd // d_shards)))
-    per_shard = -(-nd // (d_shards * db_tile)) * db_tile
-    db_pad = _pad_rows(db_onehot, per_shard * d_shards)[: per_shard * d_shards]
-    offsets = np.arange(d_shards, dtype=np.int32) * per_shard
-    valid = np.minimum(np.maximum(nd - offsets, 0), per_shard).astype(np.int32)
-    q_pad = _pad_rows(q_onehot, q_shards)
-
-    step = sharded_count_step(mesh, editdist=editdist, length=length,
-                              db_tile=db_tile)
-    q_sh = jax.device_put(jnp.asarray(q_pad, dtype=jnp.bfloat16),
-                          NamedSharding(mesh, P("q", None)))
-    db_sh = jax.device_put(jnp.asarray(db_pad, dtype=jnp.bfloat16),
-                           NamedSharding(mesh, P("d", None)))
-    valid_sh = jax.device_put(jnp.asarray(valid),
-                              NamedSharding(mesh, P("d")))
-    from ..util import fetch
-    return fetch(step(q_sh, db_sh, valid_sh))[:nq]
-
-
-def sharded_hamming_topk(q_onehot: np.ndarray, db_onehot: np.ndarray,
-                         k: int, length: int, *,
-                         mesh: Optional[Mesh] = None,
-                         q_shards: Optional[int] = None,
-                         d_shards: Optional[int] = None,
-                         db_tile: int = 2048
-                         ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact Hamming k-NN over a device mesh; same contract as hamming_topk."""
-    if mesh is None:
-        ndev = len(jax.devices())
-        if d_shards is None:
-            d_shards = ndev if q_shards is None else ndev // q_shards
-        if q_shards is None:
-            q_shards = ndev // d_shards
-        mesh = make_mesh(q_shards, d_shards)
-    q_shards = mesh.devices.shape[0]
-    d_shards = mesh.devices.shape[1]
-
-    nq, nd = q_onehot.shape[0], db_onehot.shape[0]
-    k_eff = min(k, nd)
-
-    # pad database to d_shards * db_tile multiples; record per-shard extents
-    db_tile = min(db_tile, max(128, -(-nd // d_shards)))
-    per_shard = -(-nd // (d_shards * db_tile)) * db_tile
-    db_pad = _pad_rows(db_onehot, per_shard * d_shards)[: per_shard * d_shards]
-    offsets = (np.arange(d_shards, dtype=np.int32) * per_shard)
-    valid = np.minimum(np.maximum(nd - offsets, 0), per_shard).astype(np.int32)
-
-    q_pad = _pad_rows(q_onehot, q_shards)
-    nq_pad = q_pad.shape[0]
-
-    step = sharded_topk_step(mesh, k=k_eff, length=length, db_tile=db_tile)
-    q_sh = jax.device_put(
-        jnp.asarray(q_pad, dtype=jnp.bfloat16),
-        NamedSharding(mesh, P("q", None)))
-    db_sh = jax.device_put(
-        jnp.asarray(db_pad, dtype=jnp.bfloat16),
-        NamedSharding(mesh, P("d", None)))
-    valid_sh = jax.device_put(jnp.asarray(valid),
-                              NamedSharding(mesh, P("d")))
-    off_sh = jax.device_put(jnp.asarray(offsets),
-                            NamedSharding(mesh, P("d")))
-    from ..util import fetch
-    keys = fetch(step(q_sh, db_sh, valid_sh, off_sh))[:nq]
-
-    dist, idx = unpack_keys(keys)
-    if k_eff < k:
-        pad = np.full((nq, k - k_eff), -1, dtype=np.int32)
-        dist = np.concatenate([dist, pad], axis=1)
-        idx = np.concatenate([idx, pad], axis=1)
-    return dist, idx
-
-
-# ---------------------------------------------------------------------------
-# Fused tier: int8 one-hot Pallas streaming kernels per database shard.
-#
-# Replaces the reference's NMSLib thread parallelism (core.py:450,502) with
-# device parallelism that keeps each chip on its fastest kernel: the MXU
-# runs int8 at 2x the bf16 rate and the streaming kernel never spills the
-# distance tiles to HBM (see pallas_stream.py), so N chips deliver ~N x the
-# measured single-chip throughput minus one (tq, d*k) all_gather.
-# ---------------------------------------------------------------------------
-
-
 def _smap(mesh, in_specs, out_specs):
-    """shard_map partial that tolerates old/new jax spellings."""
-    try:
-        from jax import shard_map
-        return functools.partial(shard_map, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_vma=False)
-    except (ImportError, TypeError):
-        from jax.experimental.shard_map import shard_map
-        return functools.partial(shard_map, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_rep=False)
+    # outputs are replicated over 'd' by the psum / all_gather merge
+    return functools.partial(jax.shard_map, mesh=mesh, in_specs=in_specs,
+                             out_specs=out_specs, check_vma=False)
 
 
 def _put_global(arr_np: np.ndarray, sharding: NamedSharding):
@@ -287,96 +55,32 @@ def _put_global(arr_np: np.ndarray, sharding: NamedSharding):
 
     Single-process: plain device_put.  Multi-process SPMD (after
     ``init_distributed``): every host holds the full numpy array and
-    contributes its addressable shards — the standard multi-host input
-    pattern for data every host can cheaply (re)compute."""
+    contributes its addressable shards."""
     if jax.process_count() == 1:
         return jax.device_put(jnp.asarray(arr_np), sharding)
     return jax.make_array_from_callback(
         arr_np.shape, sharding, lambda idx: arr_np[idx])
 
 
-def _onehot_int8(codes):
-    """uint8 codes -> lane-padded int8 one-hot (device-side, sharding-safe:
-    row-wise ops only, so a (q|d)-sharded input stays sharded)."""
-    n, length = codes.shape
-    oh = jax.nn.one_hot(codes, 4, dtype=jnp.int8).reshape(n, 4 * length)
-    feat_pad = -(4 * length) % 128
-    if feat_pad:
-        oh = jnp.pad(oh, ((0, 0), (0, feat_pad)))
-    return oh
+@functools.lru_cache(maxsize=64)
+def count_step(mesh: Mesh, *, editdist: int, length: int, engine: str):
+    """Jitted ``step(q, db) -> (nq,) counts``: partial counts per database
+    shard, summed with one ``psum`` over ``d``."""
+    def step(q, db):
+        local = count_feats(q, db, length=length, editdist=editdist,
+                            engine=engine)
+        return jax.lax.psum(local, "d")
 
-
-@dataclass
-class ShardedDb:
-    """Device-resident database, sharded over the mesh's ``d`` axis.
-
-    Built once per index (KnnIndex caches it); queries stream against it
-    without any further host->device database traffic.
-    """
-    mesh: Mesh
-    db_oh: jax.Array      # (d_shards*per_shard, feat) int8, P('d', None)
-    offsets: jax.Array    # (d_shards,) int32 global row offset, P('d')
-    nd: int               # true (unpadded) database size
-    per_shard: int
-    db_tile: int
-    length: int
-
-
-def prepare_db_sharded(codes: np.ndarray, mesh: Mesh, *,
-                       db_tile: int = 8192) -> ShardedDb:
-    """Shard + transfer the database once: 2-bit codes cross the host link
-    (16x less than one-hot), the int8 one-hot is built on device."""
-    from .pallas_hamming import _pad_code_rows
-    nd, length = codes.shape
-    d_shards = mesh.devices.shape[1]
-    per_dev = max(1, -(-nd // d_shards))
-    db_tile = min(db_tile, max(128, 1 << (per_dev - 1).bit_length()))
-    per_shard = -(-nd // (d_shards * db_tile)) * db_tile
-    padded = _pad_code_rows(codes, per_shard * d_shards)
-    row_sh = NamedSharding(mesh, P("d", None))
-    codes_dev = _put_global(padded, row_sh)
-    db_oh = jax.jit(_onehot_int8, out_shardings=row_sh)(codes_dev)
-    offsets = _put_global(
-        np.arange(d_shards, dtype=np.int32) * per_shard,
-        NamedSharding(mesh, P("d")))
-    return ShardedDb(mesh=mesh, db_oh=db_oh, offsets=offsets, nd=nd,
-                     per_shard=per_shard, db_tile=db_tile, length=length)
-
-
-def _put_queries(q_codes: np.ndarray, mesh: Mesh, q_tile: int):
-    """Pad query codes so every q-shard is a whole number of q_tiles, then
-    one-hot on device under the ``q`` sharding."""
-    from .pallas_hamming import _pad_code_rows
-    q_shards = mesh.devices.shape[0]
-    padded = _pad_code_rows(q_codes, q_shards * q_tile)
-    row_sh = NamedSharding(mesh, P("q", None))
-    codes_dev = _put_global(padded, row_sh)
-    return jax.jit(_onehot_int8, out_shardings=row_sh)(codes_dev)
-
-
-def _fit_q_tile(q_tile: int, db_tile: int, nq: int, q_shards: int) -> int:
-    """Largest q_tile that fits the streaming kernel's VMEM merge buffer
-    (see pallas_hamming.MAX_TILE_ELEMS) without shrinking the db tile the
-    resident database was laid out with."""
-    from .pallas_hamming import LANES, MAX_TILE_ELEMS
-    per_q = max(1, -(-nq // q_shards))
-    q_tile = min(q_tile, max(8, 1 << (per_q - 1).bit_length()))
-    while q_tile > 8 and q_tile * (db_tile + LANES) > MAX_TILE_ELEMS:
-        q_tile //= 2
-    return q_tile
+    return jax.jit(_smap(mesh, (P("q", None), P("d", None)), P("q"))(step))
 
 
 @functools.lru_cache(maxsize=64)
-def _fused_topk_step(mesh: Mesh, k: int, length: int, q_tile: int,
-                     db_tile: int, interpret: bool):
-    """jitted shard_map step: per-shard Pallas streaming top-k, globalized
-    packed keys, all_gather merge over the ``d`` (ICI) axis."""
-    from .pallas_stream import _stream_topk
-
-    def step(q_oh, db_shard, offsets):
-        keys = _stream_topk(q_oh, db_shard, k=k, length=length,
-                            q_tile=q_tile, db_tile=db_tile,
-                            interpret=interpret)[:, :k]
+def topk_step(mesh: Mesh, *, k: int, length: int, engine: str):
+    """Jitted ``step(q, db, offsets) -> (nq, k) keys``: per-shard top-k
+    with globally offset keys, merged by ``all_gather`` + ``top_k``."""
+    def step(q, db, offsets):
+        keys = topk_feats(q, db, db.shape[0], k=k, length=length,
+                          engine=engine)
         # local -> global index: adding the shard offset to the idx bits
         # cannot carry into the distance bits (global nd < 2^IDX_BITS)
         keys = jnp.where(keys >= INF_KEY, INF_KEY, keys + offsets[0])
@@ -384,59 +88,134 @@ def _fused_topk_step(mesh: Mesh, k: int, length: int, q_tile: int,
         neg_top, _ = jax.lax.top_k(-gathered, k)
         return -neg_top
 
-    return jax.jit(_smap(
-        mesh,
-        (P("q", None), P("d", None), P("d")),
-        P("q", None))(step))
+    return jax.jit(_smap(mesh, (P("q", None), P("d", None), P("d")),
+                         P("q", None))(step))
 
 
-@functools.lru_cache(maxsize=64)
-def _fused_count_step(mesh: Mesh, editdist: int, length: int, q_tile: int,
-                      db_tile: int, interpret: bool):
-    """jitted shard_map step: per-shard Pallas counting kernel, psum over
-    ``d`` (counts are additive across shards — no top-k merge at all)."""
-    from .pallas_stream import _stream_count
+@dataclass
+class ShardedDb:
+    """Device-resident int8 database features, sharded over ``d``.
 
-    def step(q_oh, db_shard):
-        cnt = _stream_count(q_oh, db_shard, length=length,
-                            editdist=editdist, q_tile=q_tile,
-                            db_tile=db_tile, interpret=interpret)[:, 0]
-        return jax.lax.psum(cnt, "d")
-
-    return jax.jit(_smap(
-        mesh,
-        (P("q", None), P("d", None)),
-        P("q"))(step))
+    Built once per index (KnnIndex caches it); queries run against it
+    with no further host->device database traffic.  Rows past ``nd`` are
+    all-zero padding.
+    """
+    mesh: Mesh
+    feats: jax.Array      # (d_shards * per_shard, F) int8, P('d', None)
+    offsets: jax.Array    # (d_shards,) int32 global row offset, P('d')
+    nd: int               # true (unpadded) database size
+    length: int           # distance is ``length - dot``
 
 
-def fused_sharded_topk(q_codes: np.ndarray, sdb: ShardedDb, k: int, *,
-                       q_tile: int = 256,
-                       interpret: Optional[bool] = None
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact Hamming k-NN against a resident sharded database; contract
-    matches hamming_topk (ascending (dist, idx), -1 padding)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    from .pallas_hamming import LANES
-    nq = q_codes.shape[0]
-    k_eff = min(k, sdb.nd, LANES)
-    q_shards = sdb.mesh.devices.shape[0]
-    q_tile = _fit_q_tile(q_tile, sdb.db_tile, nq, q_shards)
-    q_oh = _put_queries(q_codes, sdb.mesh, q_tile)
-    step = _fused_topk_step(sdb.mesh, k_eff, sdb.length, q_tile,
-                            sdb.db_tile, interpret)
-    keys = step(q_oh, sdb.db_oh, sdb.offsets)
-    from ..util import fetch
-    out = fetch(keys[:nq])
-    dist, idx = unpack_keys(out)
-    bad = idx >= sdb.nd      # padding rows (dist == length, idx >= nd)
-    dist[bad] = -1
-    idx[bad] = -1
-    if k_eff < k:
-        pad = np.full((nq, k - k_eff), -1, dtype=np.int32)
-        dist = np.concatenate([dist, pad], axis=1)
-        idx = np.concatenate([idx, pad], axis=1)
-    return dist, idx
+def _per_shard(nd: int, d_shards: int) -> int:
+    per_dev = max(1, -(-nd // d_shards))
+    tile = fit_tile(DB_TILE, per_dev)
+    return -(-per_dev // tile) * tile
+
+
+def _offsets(mesh: Mesh, per_shard: int):
+    d_shards = mesh.devices.shape[1]
+    return _put_global(np.arange(d_shards, dtype=np.int32) * per_shard,
+                       NamedSharding(mesh, P("d")))
+
+
+def prepare_db_sharded(codes: np.ndarray, mesh: Mesh) -> ShardedDb:
+    """Shard + transfer the database once: 2-bit codes cross the host
+    link, the int8 one-hot is built on device under the row sharding."""
+    nd, length = codes.shape
+    per_shard = _per_shard(nd, mesh.devices.shape[1])
+    padded = pad_code_rows(codes, per_shard * mesh.devices.shape[1])
+    row_sh = NamedSharding(mesh, P("d", None))
+    feats = jax.jit(onehot_on_device, out_shardings=row_sh)(
+        _put_global(padded, row_sh))
+    return ShardedDb(mesh=mesh, feats=feats,
+                     offsets=_offsets(mesh, per_shard), nd=nd, length=length)
+
+
+def shard_features(feats, mesh: Mesh, *, length: int) -> ShardedDb:
+    """:class:`ShardedDb` from an (nd, F) feature matrix (host or
+    device; a device matrix is resharded on device)."""
+    nd = feats.shape[0]
+    per_shard = _per_shard(nd, mesh.devices.shape[1])
+    rows = per_shard * mesh.devices.shape[1]
+    row_sh = NamedSharding(mesh, P("d", None))
+    if isinstance(feats, np.ndarray):
+        feats = _put_global(_pad_rows(feats.astype(np.int8), rows), row_sh)
+    else:
+        feats = jax.device_put(
+            jnp.pad(feats.astype(jnp.int8), ((0, rows - nd), (0, 0))), row_sh)
+    return ShardedDb(mesh=mesh, feats=feats,
+                     offsets=_offsets(mesh, per_shard), nd=nd, length=length)
+
+
+def put_query_codes(q_codes: np.ndarray, mesh: Mesh):
+    """Query codes -> one-hot features sharded over ``q`` (rows padded
+    with INVALID codes to a bucketed multiple of the q shards)."""
+    q_shards = mesh.devices.shape[0]
+    per_q = -(-max(1, q_codes.shape[0]) // q_shards)
+    padded = pad_code_rows(q_codes, q_shards * bucket_rows(per_q, 8))
+    row_sh = NamedSharding(mesh, P("q", None))
+    return jax.jit(onehot_on_device, out_shardings=row_sh)(
+        _put_global(padded, row_sh))
+
+
+def put_query_feats(q_feats, mesh: Mesh):
+    """Query features (host or device) -> sharded over ``q``, zero rows
+    padded to a bucketed multiple of the q shards."""
+    q_shards = mesh.devices.shape[0]
+    n = q_feats.shape[0]
+    rows = q_shards * bucket_rows(-(-max(1, n) // q_shards), 8)
+    row_sh = NamedSharding(mesh, P("q", None))
+    if isinstance(q_feats, np.ndarray):
+        return _put_global(_pad_rows(q_feats.astype(np.int8), rows), row_sh)
+    return jax.device_put(
+        jnp.pad(q_feats.astype(jnp.int8), ((0, rows - n), (0, 0))), row_sh)
+
+
+def sharded_count(q_sh, sdb: ShardedDb, editdist: int, *, engine: str):
+    """(rows,) device counts of database entries with dist < editdist
+    for q-sharded query features ``q_sh`` (padded rows included; callers
+    slice).  Requires ``editdist <= sdb.length``."""
+    if editdist > sdb.length:
+        raise ValueError("editdist must be <= guide length for counting")
+    step = count_step(sdb.mesh, editdist=editdist, length=sdb.length,
+                      engine=engine)
+    return step(q_sh, sdb.feats)
+
+
+def sharded_topk(q_sh, nq: int, sdb: ShardedDb, k: int, *,
+                 engine: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact k-NN of the first ``nq`` rows of ``q_sh``; contract matches
+    :func:`.hamming.hamming_topk` (ascending (dist, idx), -1 padding)."""
+    k_eff = min(k, sdb.nd)
+    step = topk_step(sdb.mesh, k=k_eff, length=sdb.length, engine=engine)
+    keys = step(q_sh, sdb.feats, sdb.offsets)
+    return keys_to_neighbors(np.asarray(keys)[:nq], sdb.nd, k)
+
+
+def sharded_hamming_count(q_feats, db_feats, editdist: int, length: int, *,
+                          mesh: Optional[Mesh] = None,
+                          engine: str = "xla") -> np.ndarray:
+    """(nq,) int32 counts of database entries with ``length - dot <
+    editdist``, from (host or device) feature matrices."""
+    if mesh is None:
+        mesh = make_mesh(1, len(jax.devices()))
+    sdb = shard_features(db_feats, mesh, length=length)
+    counts = sharded_count(put_query_feats(q_feats, mesh), sdb, editdist,
+                           engine=engine)
+    return np.asarray(counts)[:q_feats.shape[0]]
+
+
+def sharded_hamming_topk(q_feats, db_feats, k: int, length: int, *,
+                         mesh: Optional[Mesh] = None,
+                         engine: str = "xla") -> Tuple[np.ndarray, np.ndarray]:
+    """Exact Hamming k-NN over a device mesh from (host or device)
+    feature matrices; same contract as :func:`.hamming.hamming_topk`."""
+    if mesh is None:
+        mesh = make_mesh(1, len(jax.devices()))
+    sdb = shard_features(db_feats, mesh, length=length)
+    return sharded_topk(put_query_feats(q_feats, mesh), q_feats.shape[0],
+                        sdb, k, engine=engine)
 
 
 @functools.lru_cache(maxsize=64)
@@ -464,7 +243,6 @@ def sharded_leven_topk(q_codes: np.ndarray, db_codes: np.ndarray, k: int, *,
                        q_tile: int = 512) -> Tuple[np.ndarray, np.ndarray]:
     """Exact Levenshtein k-NN, database sharded over ``d``, queries over
     ``q``; same contract as leven_topk."""
-    from .pallas_hamming import _pad_code_rows
     if mesh is None:
         mesh = make_mesh(1, len(jax.devices()))
     q_shards, d_shards = mesh.devices.shape
@@ -475,12 +253,12 @@ def sharded_leven_topk(q_codes: np.ndarray, db_codes: np.ndarray, k: int, *,
     per_dev = max(1, -(-nd // d_shards))
     db_tile = min(db_tile, max(128, 1 << (per_dev - 1).bit_length()))
     per_shard = -(-nd // (d_shards * db_tile)) * db_tile
-    db_pad = _pad_code_rows(db_codes, per_shard * d_shards)
+    db_pad = pad_code_rows(db_codes, per_shard * d_shards)
     offsets = np.arange(d_shards, dtype=np.int32) * per_shard
     valid = np.minimum(np.maximum(nd - offsets, 0), per_shard).astype(np.int32)
 
     q_tile = min(q_tile, max(8, 1 << (max(1, -(-nq // q_shards)) - 1).bit_length()))
-    q_pad = _pad_code_rows(q_codes, q_shards * q_tile)
+    q_pad = pad_code_rows(q_codes, q_shards * q_tile)
 
     step = _sharded_leven_step(mesh, k_eff, length, q_tile, db_tile)
     q_sh = jax.device_put(jnp.asarray(q_pad),
@@ -489,8 +267,7 @@ def sharded_leven_topk(q_codes: np.ndarray, db_codes: np.ndarray, k: int, *,
                            NamedSharding(mesh, P("d", None)))
     valid_sh = jax.device_put(jnp.asarray(valid), NamedSharding(mesh, P("d")))
     off_sh = jax.device_put(jnp.asarray(offsets), NamedSharding(mesh, P("d")))
-    from ..util import fetch
-    keys = fetch(step(q_sh, db_sh, valid_sh, off_sh))[:nq]
+    keys = np.asarray(step(q_sh, db_sh, valid_sh, off_sh))[:nq]
 
     dist, idx = unpack_keys(keys)
     if k_eff < k:
@@ -505,7 +282,7 @@ def sharded_banded_pairs(qa: np.ndarray, ca: np.ndarray, *, t: int,
     """Row-paired banded Levenshtein over the whole mesh.
 
     Verification pairs are embarrassingly parallel, so rows shard over
-    BOTH mesh axes (q x d flattened) — every chip runs the same banded
+    BOTH mesh axes (q x d flattened) — every device runs the same banded
     kernel on its row slice with no collectives at all.  Contract
     matches leven.banded_leven_pairs (exact for true distance <= t,
     t + 1 beyond the band; identical padding rows compare to 0 and are
@@ -521,28 +298,4 @@ def sharded_banded_pairs(qa: np.ndarray, ca: np.ndarray, *, t: int,
             lambda a, b: banded_leven_pairs(a, b, t=t, length=length)))
     sh = NamedSharding(mesh, P(("q", "d"), None))
     out = step(_put_global(qa, sh), _put_global(ca, sh))
-    from ..util import fetch
-    return fetch(out)[:n]
-
-
-def fused_sharded_count(q_codes: np.ndarray, sdb: ShardedDb, editdist: int,
-                        *, q_tile: int = 256,
-                        interpret: Optional[bool] = None) -> np.ndarray:
-    """(nq,) int32 counts of database entries with dist < editdist.
-
-    Padding rows one-hot to all-zero => dist == length >= editdist, so
-    they are never counted (callers reject editdist > length up front).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if editdist > sdb.length:
-        raise ValueError("editdist must be <= guide length for counting")
-    nq = q_codes.shape[0]
-    q_shards = sdb.mesh.devices.shape[0]
-    q_tile = _fit_q_tile(q_tile, sdb.db_tile, nq, q_shards)
-    q_oh = _put_queries(q_codes, sdb.mesh, q_tile)
-    step = _fused_count_step(sdb.mesh, editdist, sdb.length, q_tile,
-                             sdb.db_tile, interpret)
-    counts = step(q_oh, sdb.db_oh)
-    from ..util import fetch
-    return fetch(counts[:nq])
+    return np.asarray(out)[:n]

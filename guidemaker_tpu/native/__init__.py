@@ -1,7 +1,9 @@
 """ctypes loader for the first-party native (C++) runtime library.
 
-Builds ``libguidemaker_native.so`` on first use if a compiler is available
-(``make -C guidemaker_tpu/native`` builds it explicitly).  All call sites
+Builds ``libguidemaker_native.so`` from source on first use if a compiler
+is available (``make -C guidemaker_tpu/native`` builds it explicitly); the
+library is never committed, since ``-march=native`` ties it to the
+building host.  All call sites
 degrade gracefully to the numpy/JAX paths when the library is absent, so
 the package works on systems without a toolchain.
 """
@@ -26,10 +28,14 @@ _load_attempted = False
 
 
 def _build() -> bool:
+    # build beside the target and rename into place: concurrent first
+    # uses (test workers, threads) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-o", _SO, _SRC, "-pthread"]
+           "-o", tmp, _SRC, "-pthread"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
     except (OSError, subprocess.SubprocessError) as e:
         logger.info("native library build failed (%r); using pure paths", e)

@@ -8,7 +8,7 @@
 //   * strict 2-bit genome encoding (the data-loader hot loop),
 //   * overlapped degenerate-PAM scanning via IUPAC bit masks,
 //   * exact Hamming k-NN with 2-bit packing + XOR/popcount and a bounded
-//     insertion top-k (the CPU fallback / oracle for the TPU MXU engine),
+//     insertion top-k (the CPU fallback / oracle for the device engines),
 //   * banded Levenshtein distance (CPU fallback / oracle).
 //
 // Exposed as a plain C ABI consumed from Python via ctypes (no pybind11

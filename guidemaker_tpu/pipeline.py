@@ -111,11 +111,6 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
                 fastapath = get_fastas(cfg.fasta, input_format="fasta",
                                        tempdir=tempdir)
 
-        # open the device->host relay channel now so its one-time cold
-        # stall overlaps the scan/index/compile work below
-        from .util import warm_d2h_channel
-        warm_d2h_channel()
-
         logger.info("Identifying PAM sites in the genome")
         pamobj = PamTarget(cfg.pamseq, cfg.pam_orientation, cfg.dtype)
         with stage_timer("pam scan"):

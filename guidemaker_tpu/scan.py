@@ -1,6 +1,6 @@
 """PAM/target enumeration: vectorized degenerate-motif scan over the genome.
 
-TPU-native replacement for the reference's ``PamTarget`` class
+Replacement for the reference's ``PamTarget`` class
 (``/root/reference/guidemaker/core.py:39-292``).  Instead of an overlapped
 ``regex.finditer`` scan (a C-extension byte loop), the genome is encoded as a
 uint8 code array and a degenerate PAM is matched with an AND-reduction of

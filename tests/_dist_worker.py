@@ -3,8 +3,8 @@
 
 Each process owns ``ndev`` virtual CPU devices; the database shards over
 all 2*ndev global devices, so the all_gather top-k merge and the psum
-count reduction both cross the process boundary — the DCN path of a
-multi-host TPU deployment, exercised on CPU.
+count reduction both cross the process boundary — the path of a
+multi-host deployment, exercised on CPU.
 """
 import os
 import sys
@@ -32,34 +32,26 @@ assert len(jax.local_devices()) == NDEV
 import numpy as np  # noqa: E402
 
 from guidemaker_tpu import dna  # noqa: E402
-from guidemaker_tpu.knn.hamming import _pad_rows, unpack_keys  # noqa: E402
-from guidemaker_tpu.knn.sharded import (_put_global, make_mesh,  # noqa: E402
-                                        sharded_count_step,
-                                        sharded_topk_step)
+from guidemaker_tpu.knn.hamming import unpack_keys  # noqa: E402
+from guidemaker_tpu.knn.sharded import (_put_global, count_step,  # noqa: E402
+                                        make_mesh, shard_features,
+                                        topk_step)
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 rng = np.random.default_rng(5)
 codes = rng.integers(0, 4, size=(512, 20)).astype(np.uint8)
 codes[3] = codes[4]
 codes[4, 0] ^= 1                       # a close pair for the counter
-oh = dna.one_hot_matrix(codes).astype(np.float32)
+oh = dna.one_hot_matrix(codes).astype(np.int8)
 NQ, ND, K, L = 64, 512, 3, 20
 
-d_shards = 2 * NDEV                    # per-host db shards, DCN merge
+d_shards = 2 * NDEV                    # per-host db shards, cross-host merge
 mesh = make_mesh(1, d_shards)
-db_tile = 64
-per_shard = -(-ND // (d_shards * db_tile)) * db_tile
-db_pad = _pad_rows(oh, per_shard * d_shards)[: per_shard * d_shards]
-offsets = np.arange(d_shards, dtype=np.int32) * per_shard
-valid = np.minimum(np.maximum(ND - offsets, 0), per_shard).astype(np.int32)
-
+sdb = shard_features(oh, mesh, length=L)
 q_sh = _put_global(oh[:NQ], NamedSharding(mesh, P("q", None)))
-db_sh = _put_global(db_pad, NamedSharding(mesh, P("d", None)))
-valid_sh = _put_global(valid, NamedSharding(mesh, P("d")))
-off_sh = _put_global(offsets, NamedSharding(mesh, P("d")))
 
-step = sharded_topk_step(mesh, k=K, length=L, db_tile=db_tile)
-keys = step(q_sh, db_sh, valid_sh, off_sh)
+step = topk_step(mesh, k=K, length=L, engine="xla")
+keys = step(q_sh, sdb.feats, sdb.offsets)
 # q axis has one shard -> the result is replicated on every device and
 # therefore fully addressable in both processes
 got_d, got_i = unpack_keys(np.asarray(jax.device_get(keys))[:NQ])
@@ -71,8 +63,8 @@ order = np.sort(keys_np, axis=1)[:, :K]
 np.testing.assert_array_equal(got_d, (order >> 24).astype(np.int32))
 np.testing.assert_array_equal(got_i, (order & ((1 << 24) - 1)).astype(np.int32))
 
-cstep = sharded_count_step(mesh, editdist=2, length=L, db_tile=db_tile)
-counts = np.asarray(jax.device_get(cstep(q_sh, db_sh, valid_sh)))[:NQ]
+cstep = count_step(mesh, editdist=2, length=L, engine="xla")
+counts = np.asarray(jax.device_get(cstep(q_sh, sdb.feats)))[:NQ]
 np.testing.assert_array_equal(counts, (dm < 2).sum(axis=1))
 
 print(f"DIST OK pid={PID} devices={len(jax.devices())} "

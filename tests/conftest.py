@@ -1,25 +1,22 @@
-"""Test configuration: force the JAX CPU backend with a virtual 8-device mesh.
+"""Test configuration.
 
-Tests must run without TPU hardware; multi-device sharding tests use
-``--xla_force_host_platform_device_count`` (SURVEY.md §4).  This must happen
-before the first ``jax`` backend initialization.
-
-Hardware tier: ``GUIDEMAKER_TPU_HW=1 pytest -m tpu`` keeps the real backend
-and runs only the ``@pytest.mark.tpu`` tests (Pallas kernels compiled for
-the actual chip instead of ``interpret=True``).
+The suite runs on the JAX CPU backend with 8 virtual devices (multi-device
+sharding tests use ``--xla_force_host_platform_device_count``); this must
+happen before the first ``jax`` backend initialization.  A process that
+names the GPU (``JAX_PLATFORMS=cuda``) keeps it: the ``gpu``-marked tests
+(``tests/test_gpu_hw.py``) then run the kernels compiled for the card.
+Each of those tests decides in its ``gpu`` fixture whether a card is
+present, and skips otherwise.
 """
+import functools
 import os
 
-TPU_HW = os.environ.get("GUIDEMAKER_TPU_HW") == "1"
-
-if not TPU_HW:
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "")
-        + " --xla_force_host_platform_device_count=8")
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_force_host_platform_device_count=8")
 
 import jax  # noqa: E402
 
-if not TPU_HW:
+if os.environ.get("JAX_PLATFORMS", "").strip().lower() not in ("cuda", "gpu"):
     jax.config.update("jax_platforms", "cpu")
 
 import pytest  # noqa: E402
@@ -37,25 +34,26 @@ if os.environ.get("GUIDEMAKER_COV") == "1":
     def pytest_sessionfinish(session, exitstatus):
         _cov.report()
 
-
-def pytest_collection_modifyitems(config, items):
-    if TPU_HW:
-        # hardware runs execute ONLY the tpu tier (everything else was
-        # already validated on the CPU mesh; mixing backends in one
-        # process is not supported)
-        skip_cpu = pytest.mark.skip(reason="GUIDEMAKER_TPU_HW=1: tpu tier only")
-        for item in items:
-            if "tpu" not in item.keywords:
-                item.add_marker(skip_cpu)
-    else:
-        skip_tpu = pytest.mark.skip(
-            reason="needs real TPU (set GUIDEMAKER_TPU_HW=1)")
-        for item in items:
-            if "tpu" in item.keywords:
-                item.add_marker(skip_tpu)
-
 TEST_DIR = os.path.dirname(os.path.abspath(__file__))
 TEST_DATA = os.path.join(TEST_DIR, "test_data")
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless the default JAX device is a GPU."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU (run with JAX_PLATFORMS=cuda on a GPU host)")
+
+
+@pytest.fixture
+def interpret_kernels(monkeypatch):
+    """Run the Pallas GPU kernels in interpret mode, so the driver's
+    GPU-backend paths run on the CPU."""
+    from guidemaker_tpu.knn import pallas_gpu as pg
+    monkeypatch.setattr(pg, "count_within",
+                        functools.partial(pg.count_within, interpret=True))
+    monkeypatch.setattr(pg, "topk_keys",
+                        functools.partial(pg.topk_keys, interpret=True))
 
 
 @pytest.fixture(scope="session")

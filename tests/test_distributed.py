@@ -23,7 +23,7 @@ def test_two_process_distributed():
     """Real 2-process jax.distributed run (SURVEY §5): coordinator +
     worker subprocesses, database sharded across both hosts' devices,
     all_gather top-k merge and psum count crossing the process boundary
-    (the DCN path), byte-identical to the single-process oracle."""
+    (the multi-host path), byte-identical to the single-process oracle."""
     import os
     import socket
     import subprocess
@@ -53,16 +53,16 @@ def test_two_process_distributed():
         assert "DIST OK" in out and "processes=2" in out
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_auto_mesh_and_sharded_query():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
     mesh = auto_mesh()
     assert mesh.devices.size == 8
     assert mesh.axis_names == ("q", "d")
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 4, size=(600, 20)).astype(np.uint8)
     oh = dna.one_hot_matrix(codes)
-    d_sh, i_sh = sharded_hamming_topk(oh[:64], oh, 3, 20, mesh=mesh,
-                                      db_tile=64)
+    d_sh, i_sh = sharded_hamming_topk(oh[:64], oh, 3, 20, mesh=mesh)
     d_1, i_1 = hamming_topk(oh[:64], oh, 3, 20)
     np.testing.assert_array_equal(d_sh, d_1)
     np.testing.assert_array_equal(i_sh, i_1)

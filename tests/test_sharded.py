@@ -25,7 +25,7 @@ def test_sharded_matches_single_device(q_shards, d_shards):
     q = _onehot(rng, 96, 20)
     db = _onehot(rng, 1000, 20)
     mesh = make_mesh(q_shards, d_shards)
-    d_sh, i_sh = sharded_hamming_topk(q, db, 5, 20, mesh=mesh, db_tile=128)
+    d_sh, i_sh = sharded_hamming_topk(q, db, 5, 20, mesh=mesh)
     d_1, i_1 = hamming_topk(q, db, 5, 20)
     np.testing.assert_array_equal(d_sh, d_1)
     np.testing.assert_array_equal(i_sh, i_1)
@@ -37,7 +37,7 @@ def test_sharded_unaligned_sizes():
     q = _onehot(rng, 37, 17)
     db = _onehot(rng, 531, 17)
     mesh = make_mesh(2, 4)
-    d_sh, i_sh = sharded_hamming_topk(q, db, 4, 17, mesh=mesh, db_tile=64)
+    d_sh, i_sh = sharded_hamming_topk(q, db, 4, 17, mesh=mesh)
     d_1, i_1 = hamming_topk(q, db, 4, 17)
     np.testing.assert_array_equal(d_sh, d_1)
     np.testing.assert_array_equal(i_sh, i_1)
@@ -68,31 +68,38 @@ def test_mesh_shape_does_not_change_results():
         np.testing.assert_array_equal(results[0][1], i2)
 
 
+def _fused_topk(qc, sdb, k):
+    from guidemaker_tpu.knn.sharded import put_query_codes, sharded_topk
+    return sharded_topk(put_query_codes(qc, sdb.mesh), len(qc), sdb, k,
+                        engine="pallas")
+
+
 @pytest.mark.parametrize("q_shards,d_shards", [(1, 8), (2, 4), (4, 2), (8, 1)])
-def test_fused_sharded_topk_matches_single_device(q_shards, d_shards):
-    """The Pallas-kernel sharded tier must agree bit-for-bit with the
-    single-device path on every mesh shape (VERDICT r1 item 2)."""
-    from guidemaker_tpu.knn.sharded import fused_sharded_topk, prepare_db_sharded
+def test_fused_sharded_topk_matches_single_device(q_shards, d_shards,
+                                                  interpret_kernels):
+    """The GPU-kernel engine wrapped in shard_map must agree bit-for-bit
+    with the single-device path on every mesh shape."""
+    from guidemaker_tpu.knn.sharded import prepare_db_sharded
     rng = np.random.default_rng(q_shards * 100 + d_shards)
     codes = rng.integers(0, 4, size=(1000, 20)).astype(np.uint8)
     qc = rng.integers(0, 4, size=(96, 20)).astype(np.uint8)
     mesh = make_mesh(q_shards, d_shards)
-    sdb = prepare_db_sharded(codes, mesh, db_tile=128)
-    d_sh, i_sh = fused_sharded_topk(qc, sdb, 5)
+    sdb = prepare_db_sharded(codes, mesh)
+    d_sh, i_sh = _fused_topk(qc, sdb, 5)
     d_1, i_1 = hamming_topk(dna.one_hot_matrix(qc), dna.one_hot_matrix(codes),
                             5, 20)
     np.testing.assert_array_equal(d_sh, d_1)
     np.testing.assert_array_equal(i_sh, i_1)
 
 
-def test_fused_sharded_unaligned_and_k_exceeds_db():
-    from guidemaker_tpu.knn.sharded import fused_sharded_topk, prepare_db_sharded
+def test_fused_sharded_unaligned_and_k_exceeds_db(interpret_kernels):
+    from guidemaker_tpu.knn.sharded import prepare_db_sharded
     rng = np.random.default_rng(23)
     codes = rng.integers(0, 4, size=(531, 17)).astype(np.uint8)
     qc = rng.integers(0, 4, size=(37, 17)).astype(np.uint8)
     mesh = make_mesh(2, 4)
-    sdb = prepare_db_sharded(codes, mesh, db_tile=64)
-    d_sh, i_sh = fused_sharded_topk(qc, sdb, 4)
+    sdb = prepare_db_sharded(codes, mesh)
+    d_sh, i_sh = _fused_topk(qc, sdb, 4)
     d_1, i_1 = hamming_topk(dna.one_hot_matrix(qc),
                             dna.one_hot_matrix(codes), 4, 17)
     np.testing.assert_array_equal(d_sh, d_1)
@@ -100,7 +107,7 @@ def test_fused_sharded_unaligned_and_k_exceeds_db():
     # k exceeding the db size pads with -1, exactly like hamming_topk
     tiny = codes[:3]
     sdb2 = prepare_db_sharded(tiny, make_mesh(1, 8))
-    d_sh, i_sh = fused_sharded_topk(qc[:8], sdb2, 6)
+    d_sh, i_sh = _fused_topk(qc[:8], sdb2, 6)
     d_1, i_1 = hamming_topk(dna.one_hot_matrix(qc[:8]),
                             dna.one_hot_matrix(tiny), 6, 17)
     np.testing.assert_array_equal(d_sh, d_1)
@@ -108,8 +115,10 @@ def test_fused_sharded_unaligned_and_k_exceeds_db():
     assert (d_sh[:, 3:] == -1).all()
 
 
-def test_fused_sharded_count_matches_oracle():
-    from guidemaker_tpu.knn.sharded import fused_sharded_count, prepare_db_sharded
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_fused_sharded_count_matches_oracle(engine, interpret_kernels):
+    from guidemaker_tpu.knn.sharded import (prepare_db_sharded,
+                                            put_query_codes, sharded_count)
     rng = np.random.default_rng(29)
     codes = rng.integers(0, 4, size=(500, 20)).astype(np.uint8)
     codes[3] = codes[4]
@@ -117,10 +126,12 @@ def test_fused_sharded_count_matches_oracle():
     dist = (codes[:, None, :] != codes[None, :, :]).sum(axis=2)
     for q_s, d_s in ((2, 4), (1, 8), (4, 2)):
         mesh = make_mesh(q_s, d_s, devices=jax.devices()[:q_s * d_s])
-        sdb = prepare_db_sharded(codes, mesh, db_tile=128)
+        sdb = prepare_db_sharded(codes, mesh)
+        q = put_query_codes(codes, mesh)
         for e in (1, 2, 5):
-            counts = fused_sharded_count(codes, sdb, e)
-            np.testing.assert_array_equal(counts, (dist < e).sum(axis=1))
+            counts = np.asarray(sharded_count(q, sdb, e, engine=engine))
+            np.testing.assert_array_equal(counts[:500],
+                                          (dist < e).sum(axis=1))
 
 
 def test_knn_index_sharded_backend_matches_xla():

@@ -209,12 +209,12 @@ def test_get_control_seqs_leven(genome_fasta, configpath):
 
 
 def test_control_seqs_pallas_chunked_ladder(genome_fasta, configpath,
-                                            monkeypatch):
-    """The fixed-shape chunked triage + per-chunk passer gather (the TPU
-    pipeline's default path) must produce valid controls on the pallas
-    backend in interpret mode — this is the route the default-backend
-    suite otherwise never exercises on CPU (where xla is the default)."""
-    monkeypatch.setenv("GUIDEMAKER_TPU_KERNEL", "pallas")
+                                            monkeypatch, interpret_kernels):
+    """The fixed-shape chunked triage + per-chunk passer gather must
+    produce valid controls on the pallas backend (the one-GPU default;
+    kernels in interpret mode here)."""
+    import guidemaker_tpu.knn.driver as drv
+    monkeypatch.setattr(drv, "_default_backend", lambda: "pallas")
     pamobj = PamTarget("ATGA", "5prime", "hamming")
     targets = pamobj.find_targets(parse_fasta(genome_fasta), target_len=20)
     tl = TargetProcessor(targets=targets, lsr=10, editdist=2, knum=2)
@@ -241,21 +241,26 @@ def test_control_seqs_pallas_chunked_ladder(genome_fasta, configpath,
 def test_control_ladder_fallback_paths(genome_fasta, configpath, tmp_path,
                                        monkeypatch):
     """Covers the rarely-hit control-search branches: the rung-wide
-    gather fallback (>_PASSER_CAP passers per chunk at tiny db sizes),
-    the verify-batch 1024-pad on the streaming pallas path, the
-    multi-chunk monolithic rung on the xla backend, and ladder
-    exhaustion (IndexError)."""
+    gather fallback (>_PASSER_CAP passers per chunk at tiny db sizes)
+    on the pallas backend, a multi-chunk rung on the xla backend, the
+    native engine's exact-k=1 rung, and ladder exhaustion
+    (IndexError)."""
+    import functools
     import yaml
     import guidemaker_tpu.knn.driver as drv
+    from guidemaker_tpu.knn import pallas_gpu as pg
 
     pamobj = PamTarget("ATGAC", "5prime", "hamming")
     targets = pamobj.find_targets(parse_fasta(genome_fasta), target_len=20)
     base = yaml.safe_load(open(configpath))
 
-    # (a) pallas streaming path, huge pass rate -> gather-cap fallback +
-    # verify pad; early exit inside the first rung
-    monkeypatch.setenv("GUIDEMAKER_TPU_KERNEL", "pallas")
-    monkeypatch.setattr(drv, "STREAM_THRESHOLD", 16)
+    # (a) pallas backend, huge pass rate -> gather-cap fallback; early
+    # exit inside the first rung
+    monkeypatch.setattr(drv, "_default_backend", lambda: "pallas")
+    monkeypatch.setattr(pg, "count_within",
+                        functools.partial(pg.count_within, interpret=True))
+    monkeypatch.setattr(pg, "topk_keys",
+                        functools.partial(pg.topk_keys, interpret=True))
     tl = TargetProcessor(targets=targets, lsr=10, editdist=2, knum=2)
     tl.find_unique_near_pam()
     tl.check_restriction_enzymes([])
@@ -264,13 +269,12 @@ def test_control_ladder_fallback_paths(genome_fasta, configpath, tmp_path,
                                          configpath=configpath, length=20,
                                          n=9, seed=5)
     assert cmin >= base["CONTROL"]["MINIMUM_HMDIST"] and len(df) == 9
-    monkeypatch.delenv("GUIDEMAKER_TPU_KERNEL")
     monkeypatch.undo()
 
-    # (b) xla backend, multi-chunk monolithic rung (m > chunk rows)
+    # (b) xla backend, multi-chunk rung (m > chunk rows)
     cfg2 = dict(base)
     cfg2["CONTROL"] = {"MINIMUM_HMDIST": 7,
-                       "CONTROL_SEARCH_MULTIPLE": [300]}
+                       "CONTROL_SEARCH_MULTIPLE": [1, 300]}
     p2 = tmp_path / "cfg2.yaml"
     p2.write_text(yaml.safe_dump(cfg2))
     tl2 = TargetProcessor(targets=targets, lsr=10, editdist=2, knum=2)
@@ -282,6 +286,12 @@ def test_control_ladder_fallback_paths(genome_fasta, configpath, tmp_path,
                                          configpath=str(p2), length=20,
                                          n=40, seed=6)
     assert cmin2 >= 7 and len(df2) == 40
+    # native engine: no counting pass, exact k=1 for the whole rung
+    tl2.index.backend = "native"
+    cmin2n, _, df2n = tl2.get_control_seqs(parse_fasta(genome_fasta),
+                                           configpath=str(p2), length=20,
+                                           n=40, seed=6)
+    assert cmin2n >= 7 and len(df2n) == 40
 
     # (c) ladder exhaustion raises IndexError (reference contract)
     cfg3 = dict(base)

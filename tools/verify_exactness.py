@@ -24,7 +24,7 @@ def main():
 
     from guidemaker_tpu import PamTarget, dna
     from guidemaker_tpu.io import parse_fasta, parse_genbank
-    from guidemaker_tpu.knn.driver import KnnIndex
+    from guidemaker_tpu.knn.driver import KnnIndex, _default_backend
 
     recs = (parse_genbank(path) if path.endswith((".gbk", ".gbk.gz", ".gb"))
             else parse_fasta(path))
@@ -45,11 +45,7 @@ def main():
         oracle_d[lo:lo + 512] = (part >> 24).astype(np.int32)
         oracle_i[lo:lo + 512] = (part & ((1 << 24) - 1)).astype(np.int32)
 
-    backends = ["xla", "native"]
-    if jax.devices()[0].platform == "tpu":
-        backends.append("pallas")
-    if len(jax.devices()) > 1:
-        backends.append("sharded")
+    backends = list(dict.fromkeys(["xla", "native", _default_backend()]))
     for backend in backends:
         t0 = time.time()
         d, i = KnnIndex(uniq, backend=backend).query(uniq, k)
